@@ -1,10 +1,10 @@
-// Golden CPU reference for the ndtpso-tpu engine.
+// Golden CPU reference for the ndtpso_slam engine.
 //
 // A clean-room, double-precision implementation of the NDT sliding-window map
 // statistics, registration cost, synchronous-batch PSO, and scan-synchronous
 // SLAM loop, matching the semantics of the reference library
 // (/root/reference/lib/ndtpso_slam/{ndtcell.cpp,core.cpp,ndtframe.cpp}) and
-// the engine's frozen Threefry draw protocol (ndtpso_slam_tpu/ops/rng.py).
+// the engine's frozen Threefry draw protocol (ndtpso_slam/ops/rng.py).
 //
 // Purpose: parity testing (BASELINE gate: pose RMSE <= 1e-3 m / 1e-3 rad at
 // identical budgets) with bit-identical random streams, at C++ speed.  This
@@ -218,7 +218,7 @@ struct PsoCfg {
 constexpr double kZeroDev[3] = {1e-4, 1e-4, 1e-5};
 
 // Synchronous-batch PSO, identical draw protocol and update rule to
-// ndtpso_slam_tpu/models/pso.py (see its module docstring for the documented
+// ndtpso_slam/models/pso.py (see its module docstring for the documented
 // divergence from the reference's mid-iteration racy gbest).
 void pso(const Map& map, const double* pts, const uint8_t* valid, long n,
          const double* guess, const double* dev, const PsoCfg& cfg,
@@ -346,7 +346,7 @@ void golden_pso(void* m, const double* pts, const uint8_t* valid, long n,
 }
 
 // Full scan-synchronous SLAM loop over a recorded log, mirroring
-// ndtpso_slam_tpu/models/slam.py: first scan keeps the prior pose; adaptive
+// ndtpso_slam/models/slam.py: first scan keeps the prior pose; adaptive
 // deviation = (0.1, 0.1, 3.1415e-3) for the two cold-start aligns, then
 // |2 * pose_diff|; per-step key = threefry(base_key, step, 0).
 void golden_slam_run(double size_m, double cell_side, int slots, int capacity,

@@ -1,11 +1,11 @@
 // Native runtime: scan-log IO and map-export writers.
 //
-// TPU-native counterpart of the reference's IO layer: the rosbag+ROS
+// Native counterpart of the reference's IO layer: the rosbag+ROS
 // transport becomes a compact mmap-friendly binary scan-log format, and
 // `NDTFrame::dumpMap`'s CSV/gnuplot/PNG export path
 // (/root/reference/lib/ndtpso_slam/ndtframe.cpp:268-422, OpenCV-based)
 // becomes lightweight writers (PNG via system zlib, with a stored-deflate
-// fallback).  Loaded from Python via ctypes (ndtpso_slam_tpu/utils/native.py).
+// fallback).  Loaded from Python via ctypes (ndtpso_slam/utils/native.py).
 
 #include <cmath>
 #include <cstdint>

@@ -11,8 +11,8 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", ".."))
-from ndtpso_slam_tpu.io.rosbag import write_bag
-from ndtpso_slam_tpu.io.synthetic import make_realistic_log
+from ndtpso_slam.io.rosbag import write_bag
+from ndtpso_slam.io.synthetic import make_realistic_log
 
 here = os.path.dirname(os.path.abspath(__file__))
 log = make_realistic_log(seed=12, n_scans=60, n_beams=540)

@@ -2,8 +2,8 @@
 
 Launched (twice) by tests/test_distributed_runtime.py with NDTPSO_* env vars;
 runs real gloo collectives across the process boundary: dp-sharded solves
-over the hierarchical (hosts, chips) mesh, multi-swarm global-best exchange
-crossing DCN, and a psum map merge — then checks every result against a
+over the hierarchical (hosts, cards) mesh, multi-swarm global-best exchange
+crossing hosts, and a psum map merge — then checks every result against a
 locally-computed single-process reference (bit-identical expectations, since
 all randomness is keyed).
 """
@@ -11,7 +11,7 @@ all randomness is keyed).
 import os
 import sys
 
-# 4 virtual CPU devices per process => a 2x4 (hosts, chips) global mesh.
+# 4 virtual CPU devices per process => a 2x4 (hosts, cards) global mesh.
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=4"
 ).strip()
@@ -20,7 +20,7 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from ndtpso_slam_tpu.parallel import runtime
+from ndtpso_slam.parallel import runtime
 
 assert runtime.initialize_distributed(), "env-driven init must engage"
 
@@ -28,10 +28,10 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import PartitionSpec as P
 
-from ndtpso_slam_tpu import config as cfgm
-from ndtpso_slam_tpu.models import cost as cost_mod, ndt_map
-from ndtpso_slam_tpu.parallel import distributed, mesh as mesh_mod
-from ndtpso_slam_tpu.parallel.multi_swarm import multi_swarm_solve
+from ndtpso_slam import config as cfgm
+from ndtpso_slam.models import cost as cost_mod, ndt_map
+from ndtpso_slam.parallel import distributed, mesh as mesh_mod
+from ndtpso_slam.parallel.multi_swarm import multi_swarm_solve
 
 PID = jax.process_index()
 NPROC = jax.process_count()
@@ -43,9 +43,9 @@ PSO_CFG = cfgm.PSOConfig(iterations=8, population=64)
 mesh = runtime.make_hier_mesh()
 assert mesh.devices.shape == (2, 4), mesh.devices.shape
 # Host axis must follow process boundaries: every device in row p belongs to
-# process p (that is what keeps ICI-axis collectives host-local).
+# process p (that is what keeps card-axis collectives host-local).
 for h in range(2):
-    assert all(d.process_index == h for d in mesh.devices[h]), "DCN axis broken"
+    assert all(d.process_index == h for d in mesh.devices[h]), "host axis broken"
 
 # --- shared world (same on both processes: same seed)
 rs = np.random.RandomState(0)
@@ -62,7 +62,7 @@ for _ in range(2):
     state = ndt_map.build(state, MAP_CFG)
 snap = ndt_map.snapshot(state, MAP_CFG)
 
-# === 1. dp solves sharded over the whole (hosts, chips) hierarchy =========
+# === 1. dp solves sharded over the whole (hosts, cards) hierarchy =========
 B = 16
 rs2 = np.random.RandomState(1)
 keys = rs2.randint(0, 2**31, (B, 2)).astype(np.uint32)
@@ -99,7 +99,7 @@ np.testing.assert_allclose(
 )
 print(f"[p{PID}] dp solves over 2x4 mesh match local reference", flush=True)
 
-# === 2. multi-swarm with the gbest exchange crossing DCN ==================
+# === 2. multi-swarm with the gbest exchange crossing hosts ==================
 K = 8  # one swarm per device
 sw_keys = rs2.randint(0, 2**31, (K, 2)).astype(np.uint32)
 sw_guess = rs2.uniform(-0.3, 0.3, (K, 3)).astype(np.float32)
@@ -115,8 +115,8 @@ def ms_step(k, g):
     # full-K run with the same cadence.
     r = multi_swarm_solve(
         k, g, jnp.float32([0.2, 0.2, 0.05]), cost_fn, PSO_CFG,
-        exchange_every=2, axis_name=runtime.ICI_AXIS,
-        dcn_axis_name=runtime.DCN_AXIS, dcn_exchange_every=2,
+        exchange_every=2, axis_name=runtime.CARD_AXIS,
+        host_axis_name=runtime.HOST_AXIS, host_exchange_every=2,
     )
     return r.pose, r.cost  # plain tuple to match out_specs
 
@@ -143,10 +143,10 @@ ref_ms = multi_swarm_solve(
 )
 np.testing.assert_allclose(
     ms_pose, np.asarray(ref_ms.pose), rtol=0, atol=1e-5,
-    err_msg="cross-DCN multi-swarm diverged from the local full-K reference",
+    err_msg="cross-host multi-swarm diverged from the local full-K reference",
 )
 np.testing.assert_allclose(ms_cost, float(np.asarray(ref_ms.cost)), atol=1e-5)
-print(f"[p{PID}] multi-swarm gbest exchange crossed DCN correctly", flush=True)
+print(f"[p{PID}] multi-swarm gbest exchange crossed hosts correctly", flush=True)
 
 # === 3. psum map merge across the process boundary ========================
 # Each DEVICE ingests a different shard of a new scan into the replicated

@@ -1,10 +1,10 @@
-"""Cost functions: exact vs oracle, fast (MXU) vs exact."""
+"""Cost functions: exact vs oracle, fast (matmul) vs exact."""
 
 import numpy as np
 
-from ndtpso_slam_tpu.config import MapConfig
-from ndtpso_slam_tpu.models import cost as cost_mod
-from ndtpso_slam_tpu.models import ndt_map
+from ndtpso_slam.config import MapConfig
+from ndtpso_slam.models import cost as cost_mod
+from ndtpso_slam.models import ndt_map
 from oracle import OracleFrame
 
 CFG = MapConfig(size_m=16.0, cell_side_m=1.0, window_slots=4, slot_capacity=5)
@@ -162,7 +162,7 @@ def test_bind_points_matmul_window_matches_full_table():
                 CFG,
             )
             # which points landed inside the window at this pose?
-            from ndtpso_slam_tpu.ops.geometry import cell_coords, transform_points
+            from ndtpso_slam.ops.geometry import cell_coords, transform_points
 
             q0 = transform_points(jnp.asarray(scan), jnp.asarray(pose))
             ix, iy, _ = cell_coords(

@@ -13,11 +13,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ndtpso_slam_tpu import config as cfgm
-from ndtpso_slam_tpu.io import synthetic
-from ndtpso_slam_tpu.models import scan as scan_mod
-from ndtpso_slam_tpu.models import slam
-from ndtpso_slam_tpu.parallel.sessions import SlamSessionPool
+from ndtpso_slam import config as cfgm
+from ndtpso_slam.io import synthetic
+from ndtpso_slam.models import scan as scan_mod
+from ndtpso_slam.models import slam
+from ndtpso_slam.parallel.sessions import SlamSessionPool
 
 N_BEAMS = 360
 

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from ndtpso_slam_tpu.ops import gaussian
+from ndtpso_slam.ops import gaussian
 from oracle import OracleCell
 
 

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from ndtpso_slam_tpu.ops import geometry
+from ndtpso_slam.ops import geometry
 
 
 def _np_transform(points, pose):

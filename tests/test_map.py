@@ -8,8 +8,8 @@ second-moment formulation reproduces the reference's raw-point math.
 import numpy as np
 import pytest
 
-from ndtpso_slam_tpu.config import MapConfig
-from ndtpso_slam_tpu.models import ndt_map
+from ndtpso_slam.config import MapConfig
+from ndtpso_slam.models import ndt_map
 from oracle import OracleFrame
 
 CFG = MapConfig(size_m=16.0, cell_side_m=1.0, window_slots=4, slot_capacity=5)
@@ -159,7 +159,7 @@ def test_sparse_build_touched_matches_dense():
     """build_touched over the scan's cell ids is bit-identical to the dense
     build across multiple ingest->build rounds, slot rotations included
     (the invariant slam_step maintains: a build after every ingestion)."""
-    from ndtpso_slam_tpu.ops.geometry import cell_index
+    from ndtpso_slam.ops.geometry import cell_index
 
     rs = np.random.RandomState(7)
     dense = ndt_map.init_map(CFG)
@@ -203,7 +203,7 @@ def test_sparse_build_touched_matches_dense():
 
 def _touched_rounds(cfg, n_rounds=12, seed=7):
     """Shared ingest->build_touched driver; returns the final state."""
-    from ndtpso_slam_tpu.ops.geometry import cell_index
+    from ndtpso_slam.ops.geometry import cell_index
 
     rs = np.random.RandomState(seed)
     state = ndt_map.init_map(cfg)
@@ -304,9 +304,9 @@ def test_sparse_ring_slam_trajectory_matches_dense():
 
     import jax.numpy as jnp
 
-    from ndtpso_slam_tpu import config as cfgm
-    from ndtpso_slam_tpu.io import synthetic
-    from ndtpso_slam_tpu.models import scan as scan_mod, slam
+    from ndtpso_slam import config as cfgm
+    from ndtpso_slam.io import synthetic
+    from ndtpso_slam.models import scan as scan_mod, slam
 
     base_map = cfgm.MapConfig(size_m=48.0, cell_side_m=1.0, window_slots=4)
     lg = synthetic.make_log(seed=5, n_scans=8, n_beams=120, world_size=40.0)

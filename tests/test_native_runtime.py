@@ -7,8 +7,8 @@ import zlib
 import numpy as np
 import pytest
 
-from ndtpso_slam_tpu.io import synthetic
-from ndtpso_slam_tpu.utils import native
+from ndtpso_slam.io import synthetic
+from ndtpso_slam.utils import native
 
 
 def test_scanlog_roundtrip(tmp_path):

@@ -9,9 +9,9 @@ import sys
 import numpy as np
 import pytest
 
-from ndtpso_slam_tpu.io import synthetic
-from ndtpso_slam_tpu.node import NodeConfig, SlamNode, _load_log
-from ndtpso_slam_tpu.utils import native
+from ndtpso_slam.io import synthetic
+from ndtpso_slam.node import NodeConfig, SlamNode, _load_log
+from ndtpso_slam.utils import native
 
 SMALL = dict(
     frame_size_m=48.0,
@@ -138,7 +138,7 @@ def test_checkpoint_partial_restore_migration(tmp_path):
     """allow_partial=True loads an older build's checkpoint whose pytree
     lacked fields the current state has; missing leaves keep init values.
     Extra saved leaves are always rejected."""
-    from ndtpso_slam_tpu.utils import checkpoint
+    from ndtpso_slam.utils import checkpoint
 
     ckpt = str(tmp_path / "old.npz")
     old = {"x": np.arange(6.0).reshape(3, 2), "y": np.ones((4,))}
@@ -157,7 +157,7 @@ def test_checkpoint_partial_restore_migration(tmp_path):
 
 def test_checkpoint_v1_fallback(tmp_path):
     """leaf_NNNN-indexed v1 checkpoints still load (count+shape validated)."""
-    from ndtpso_slam_tpu.utils import checkpoint
+    from ndtpso_slam.utils import checkpoint
 
     ckpt = str(tmp_path / "v1.npz")
     a = {"x": np.arange(6.0).reshape(3, 2), "y": np.ones((4,))}
@@ -184,7 +184,7 @@ def test_checkpoint_shape_mismatch_rejected(log, tmp_path):
 def test_checkpoint_treedef_mismatch_rejected(tmp_path):
     """A checkpoint of a different pytree STRUCTURE must not silently load,
     even when leaf shapes happen to match (VERDICT r1 weak #7)."""
-    from ndtpso_slam_tpu.utils import checkpoint
+    from ndtpso_slam.utils import checkpoint
 
     ckpt = str(tmp_path / "t.npz")
     a = {"x": np.zeros((3, 2)), "y": np.ones((4,))}
@@ -241,11 +241,9 @@ def test_node_config_json(tmp_path):
 def test_launch_configs_parse():
     here = os.path.join(os.path.dirname(__file__), "..", "launch")
     for name in ("scan.json", "lidar_front.json", "lidar_back.json"):
-        raw = json.load(open(os.path.join(here, name)))
-        raw.pop("_comment", None)
-        cfg = NodeConfig(**{
-            k: tuple(v) if isinstance(v, list) else v for k, v in raw.items()
-        })
+        # from_json is the node's own path (`--config`): the files' "_comment"
+        # keys must pass, as comments.
+        cfg = NodeConfig.from_json(os.path.join(here, name))
         assert cfg.frame_size_m > 0
 
 
@@ -281,7 +279,7 @@ def test_cli_and_tools_end_to_end(log, tmp_path):
                os.environ.get("PYTHONPATH", ""))
     out_base = str(tmp_path / "cli")
     r = subprocess.run(
-        [sys.executable, "-m", "ndtpso_slam_tpu.node", "--scanlog", logpath,
+        [sys.executable, "-m", "ndtpso_slam.node", "--scanlog", logpath,
          "--out", out_base, "--quiet", "--frame-size", "48", "--cell-side", "1",
          "--iterations", "20", "--population", "40", "--cost-mode", "exact",
          "--checkpoint", str(tmp_path / "final.npz")],
@@ -295,7 +293,7 @@ def test_cli_and_tools_end_to_end(log, tmp_path):
     # (reference API surface core.h:21-23; VERDICT r3 missing #3).
     glir_base = str(tmp_path / "cli_glir")
     rg = subprocess.run(
-        [sys.executable, "-m", "ndtpso_slam_tpu.node", "--scanlog", logpath,
+        [sys.executable, "-m", "ndtpso_slam.node", "--scanlog", logpath,
          "--out", glir_base, "--quiet", "--frame-size", "48", "--cell-side", "1",
          "--iterations", "20", "--population", "40", "--cost-mode", "exact",
          "--optimizer", "glir"],

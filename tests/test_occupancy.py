@@ -8,9 +8,9 @@ changes when points land in it, so refreshing touched blocks is exact.
 import numpy as np
 import jax.numpy as jnp
 
-from ndtpso_slam_tpu import config as cfgm
-from ndtpso_slam_tpu.models import ndt_map, occupancy
-from ndtpso_slam_tpu.ops.geometry import cell_index
+from ndtpso_slam import config as cfgm
+from ndtpso_slam.models import ndt_map, occupancy
+from ndtpso_slam.ops.geometry import cell_index
 
 MAP_CFG = cfgm.MapConfig(size_m=24.0, cell_side_m=1.0, window_slots=4,
                          slot_capacity=10)

@@ -7,10 +7,10 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from ndtpso_slam_tpu import config as cfgm
-from ndtpso_slam_tpu.models import cost as cost_mod, ndt_map
-from ndtpso_slam_tpu.parallel import distributed, mesh as mesh_mod
-from ndtpso_slam_tpu.parallel.multi_swarm import multi_swarm_solve
+from ndtpso_slam import config as cfgm
+from ndtpso_slam.models import cost as cost_mod, ndt_map
+from ndtpso_slam.parallel import distributed, mesh as mesh_mod
+from ndtpso_slam.parallel.multi_swarm import multi_swarm_solve
 
 MAP_CFG = cfgm.MapConfig(size_m=32.0, cell_side_m=1.0, window_slots=4)
 PSO_CFG = cfgm.PSOConfig(iterations=12, population=64)
@@ -158,26 +158,26 @@ def test_distributed_map_merge_equals_serial(world):
     )
 
 
-def test_fused_solve_matches_fast(world):
-    """fast_fused (Pallas kernel, interpret mode on CPU) == fast (XLA)."""
-    keys, guesses, devs, snaps, points, valid = _batch(world, b=4)
-    cfg = cfgm.PSOConfig(iterations=10, population=512)
-    r_fast = mesh_mod.solve_batch(
-        keys, guesses, devs, snaps, points, valid, MAP_CFG, cfg, "fast"
+def test_sharded_rollout_matches_solve_batch(world):
+    """The whole-solve kernel inside shard_map (make_sharded_solver, one
+    kernel call per device over its slice of the batch) == the one-device
+    solve_batch: programs are independent, so sharding changes no solve."""
+    keys, guesses, devs, snaps, points, valid = _batch(world, b=8)
+    cfg = cfgm.PSOConfig(iterations=6, population=64)
+    local = mesh_mod.solve_batch(
+        keys, guesses, devs, snaps, points, valid, MAP_CFG, cfg, "rollout",
+        early_exit=2,
     )
-    r_fused = mesh_mod.solve_batch(
-        keys, guesses, devs, snaps, points, valid, MAP_CFG, cfg, "fast_fused"
+    solver = mesh_mod.make_sharded_solver(
+        mesh_mod.make_mesh(4), MAP_CFG, cfg, cost_mode="rollout", early_exit=2
     )
-    np.testing.assert_allclose(
-        np.asarray(r_fast.cost), np.asarray(r_fused.cost), rtol=1e-4, atol=1e-3
-    )
-    np.testing.assert_allclose(
-        np.asarray(r_fast.pose), np.asarray(r_fused.pose), atol=5e-3
-    )
+    sharded = solver(keys, guesses, devs, snaps, points, valid)
+    np.testing.assert_array_equal(np.asarray(local.pose), np.asarray(sharded.pose))
+    np.testing.assert_array_equal(np.asarray(local.cost), np.asarray(sharded.cost))
 
 
 def test_fast_matmul_solve_matches_fast(world):
-    """fast_matmul (one-hot MXU binder) is bit-identical to fast's gather
+    """fast_matmul (one-hot matmul binder) is bit-identical to fast's gather
     binding, so the whole solve must match exactly (VERDICT r2 weak #4:
     fast_matmul is now a first-class solve_batch mode, not multiswarm-only)."""
     keys, guesses, devs, snaps, points, valid = _batch(world, b=3)
@@ -204,7 +204,7 @@ def test_batch_solver_matches_vmap_solver(world):
     r_vmap = mesh_mod.solve_batch(
         keys, guesses, devs, snaps, points, valid, MAP_CFG, cfg, "fast"
     )
-    from ndtpso_slam_tpu.models.pso import pso_solve_batch
+    from ndtpso_slam.models.pso import pso_solve_batch
 
     def batched_cost(poses, binds):
         bound = jax.vmap(
@@ -223,7 +223,7 @@ def test_batch_solver_matches_vmap_solver(world):
 
 def test_solve_batch_rejects_unknown_cost_mode(world):
     """Typos like 'rollout_brf16' must error, not silently run another
-    kernel (ADVICE r1)."""
+    path."""
     keys, guesses, devs, snaps, points, valid = _batch(world, b=2)
     with pytest.raises(ValueError, match="unknown cost_mode"):
         mesh_mod.solve_batch(
@@ -239,8 +239,8 @@ def test_solve_batch_rejects_unknown_cost_mode(world):
 def _fleet_fixture(ring_rows=0, b=3, n_scans=10):
     import dataclasses
 
-    from ndtpso_slam_tpu.io import synthetic
-    from ndtpso_slam_tpu.models import scan as scan_mod
+    from ndtpso_slam.io import synthetic
+    from ndtpso_slam.models import scan as scan_mod
 
     cfg = cfgm.SlamConfig(
         pso=cfgm.PSOConfig(iterations=15, population=50),
@@ -282,8 +282,8 @@ def test_fleet_flat_matches_solo_bitwise(ring_rows):
     """run_offline_fleet == per-robot run_offline, BITWISE: the flat-scatter
     map update must be the same arithmetic as the solo path (disjoint
     per-robot id ranges, identical row math)."""
-    from ndtpso_slam_tpu.models import slam as slam_mod
-    from ndtpso_slam_tpu.parallel.fleet import run_offline_fleet
+    from ndtpso_slam.models import slam as slam_mod
+    from ndtpso_slam.parallel.fleet import run_offline_fleet
 
     cfg, logs, scans, init_poses, keys = _fleet_fixture(ring_rows=ring_rows)
     states = slam_mod.init_slam_batch(cfg, init_poses)
@@ -318,8 +318,8 @@ def test_fleet_flat_matches_solo_bitwise(ring_rows):
 def test_fleet_flat_matches_run_offline_batch():
     """Same results as the vmapped fleet path (which is itself solo-bitwise)
     — the two fleet APIs are interchangeable."""
-    from ndtpso_slam_tpu.models import slam as slam_mod
-    from ndtpso_slam_tpu.parallel.fleet import run_offline_fleet
+    from ndtpso_slam.models import slam as slam_mod
+    from ndtpso_slam.parallel.fleet import run_offline_fleet
 
     cfg, logs, scans, init_poses, keys = _fleet_fixture(b=2, n_scans=6)
     states = slam_mod.init_slam_batch(cfg, init_poses)
@@ -332,8 +332,8 @@ def test_fleet_flat_matches_run_offline_batch():
 def test_fleet_flat_rejects_unsupported_configs():
     import dataclasses
 
-    from ndtpso_slam_tpu.models import slam as slam_mod
-    from ndtpso_slam_tpu.parallel.fleet import run_offline_fleet
+    from ndtpso_slam.models import slam as slam_mod
+    from ndtpso_slam.parallel.fleet import run_offline_fleet
 
     cfg, logs, scans, init_poses, keys = _fleet_fixture(b=2, n_scans=4)
     states = slam_mod.init_slam_batch(cfg, init_poses)
@@ -349,18 +349,18 @@ def test_fleet_flat_rejects_unsupported_configs():
             run_offline_fleet(states, scans, keys, bad)
 
 
-def test_fleet_rollout_local_matches_solo_bitwise():
+def test_fleet_rollout_matches_solo_bitwise():
     """The fleet's rollout path (_align_rollout_fleet: ONE kernel call with
     B = robots) reproduces each robot's solo run_offline (B=1 kernel calls)
-    bitwise — kernel grid steps are independent, so batching robots through
-    the grid must not change any solve."""
-    from ndtpso_slam_tpu.models import slam as slam_mod
-    from ndtpso_slam_tpu.parallel.fleet import run_offline_fleet
-
-    cfg, logs, scans, init_poses, keys = _fleet_fixture(b=2, n_scans=5)
+    bitwise — the kernel's programs are independent, so batching robots
+    must not change any solve."""
     import dataclasses
 
-    cfg = dataclasses.replace(cfg, cost_mode="rollout_local")
+    from ndtpso_slam.models import slam as slam_mod
+    from ndtpso_slam.parallel.fleet import run_offline_fleet
+
+    cfg, logs, scans, init_poses, keys = _fleet_fixture(b=2, n_scans=5)
+    cfg = dataclasses.replace(cfg, cost_mode="rollout")
     states = slam_mod.init_slam_batch(cfg, init_poses)
     fstates, fposes, fcosts = run_offline_fleet(states, scans, keys, cfg)
     for r in range(2):
@@ -386,8 +386,8 @@ def test_fleet_rollout_local_matches_solo_bitwise():
 def test_fleet_sharded_matches_unsharded():
     """Robots-over-devices fleet (shard_map, private maps, no collectives)
     == the single-device flat fleet, bitwise, on the virtual CPU mesh."""
-    from ndtpso_slam_tpu.models import slam as slam_mod
-    from ndtpso_slam_tpu.parallel.fleet import (
+    from ndtpso_slam.models import slam as slam_mod
+    from ndtpso_slam.parallel.fleet import (
         run_offline_fleet,
         run_offline_fleet_sharded,
     )

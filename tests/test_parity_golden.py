@@ -10,13 +10,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ndtpso_slam_tpu import config as cfgm
-from ndtpso_slam_tpu.io import synthetic
-from ndtpso_slam_tpu.models import cost as cost_mod
-from ndtpso_slam_tpu.models import ndt_map, scan as scan_mod, slam
-from ndtpso_slam_tpu.models.pso import pso_solve
-from ndtpso_slam_tpu.ops import rng
-from ndtpso_slam_tpu.utils import native
+from ndtpso_slam import config as cfgm
+from ndtpso_slam.io import synthetic
+from ndtpso_slam.models import cost as cost_mod
+from ndtpso_slam.models import ndt_map, scan as scan_mod, slam
+from ndtpso_slam.models.pso import pso_solve
+from ndtpso_slam.ops import rng
+from ndtpso_slam.utils import native
 
 MAP_CFG = cfgm.MapConfig(size_m=64.0, cell_side_m=1.0, window_slots=8, slot_capacity=50)
 SCAN_CFG = cfgm.ScanConfig(max_beams=384)

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ndtpso_slam_tpu.config import PSOConfig
-from ndtpso_slam_tpu.models.pso import glir_pso_solve, pso_solve
+from ndtpso_slam.config import PSOConfig
+from ndtpso_slam.models.pso import glir_pso_solve, pso_solve
 from oracle import oracle_pso
 
 KEY = (np.uint32(11), np.uint32(22))

@@ -9,7 +9,7 @@ import os
 import numpy as np
 import pytest
 
-from ndtpso_slam_tpu.io import importers, rosbag, synthetic
+from ndtpso_slam.io import importers, rosbag, synthetic
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "data", "realistic.bag")
@@ -100,7 +100,7 @@ def test_fixture_end_to_end_slam(tmp_path):
     noise, 5% dropout, and moving clutter; beat the drifting odometry; and
     produce the trajectory-overlay PNG (the reference's RViz comparison,
     `src/test/path_publisher`)."""
-    from ndtpso_slam_tpu.node import NodeConfig, SlamNode
+    from ndtpso_slam.node import NodeConfig, SlamNode
 
     log = importers.load_log(FIXTURE)
     gt = np.load(FIXTURE_GT)

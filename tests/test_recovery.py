@@ -11,11 +11,11 @@ with recovery on or off.
 import numpy as np
 import jax.numpy as jnp
 
-from ndtpso_slam_tpu import config as cfgm
-from ndtpso_slam_tpu.io import synthetic
-from ndtpso_slam_tpu.models import scan as scan_mod
-from ndtpso_slam_tpu.models import slam
-from ndtpso_slam_tpu.ops import rng
+from ndtpso_slam import config as cfgm
+from ndtpso_slam.io import synthetic
+from ndtpso_slam.models import scan as scan_mod
+from ndtpso_slam.models import slam
+from ndtpso_slam.ops import rng
 
 KEY = (np.uint32(21), np.uint32(9))
 N_BEAMS = 360

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from ndtpso_slam_tpu.ops import rng
+from ndtpso_slam.ops import rng
 from oracle import threefry2x32_np, uniform_pairs_np
 
 

@@ -1,20 +1,22 @@
-"""Whole-rollout Pallas PSO kernel vs the XLA solver (interpret mode on CPU).
+"""Whole-solve PSO kernel vs the XLA solver (Triton route, interpret mode on
+the CPU).
 
-The rollout kernel re-implements, on-chip, the exact frozen pieces the XLA
-path uses: the Threefry draw protocol (ops/rng.py), the stencil rebind
-(models/cost.py:bind_points_local), and the synchronous-gbest PSO update
-(models/pso.py).  These tests pin each piece to its XLA counterpart."""
+The rollout kernel re-implements, in one program per solve, the frozen
+pieces the XLA path uses: the Threefry draw protocol (ops/rng.py), the
+stencil rebind (models/cost.py:bind_points_local), and the synchronous-gbest
+PSO update (models/pso.py).  These tests pin each piece to its XLA
+counterpart, and check that the kernel lowers for the GPU."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from ndtpso_slam_tpu import config as cfgm
-from ndtpso_slam_tpu.models import ndt_map
-from ndtpso_slam_tpu.ops import rng
-from ndtpso_slam_tpu.ops import pallas_rollout as pr
-from ndtpso_slam_tpu.parallel import mesh as mesh_mod
+from ndtpso_slam import config as cfgm
+from ndtpso_slam.models import ndt_map
+from ndtpso_slam.ops import rng
+from ndtpso_slam.ops import pallas_rollout as pr
+from ndtpso_slam.parallel import mesh as mesh_mod
 
 MAP_CFG = cfgm.MapConfig(size_m=32.0, cell_side_m=1.0, window_slots=4)
 
@@ -36,7 +38,7 @@ def world():
 
 
 def _batch(world, b, n_pad=256):
-    """Batch of solves with the point set padded to a lane-aligned N."""
+    """Batch of solves with the point set padded to N = n_pad."""
     snap, pts = world
     n = pts.shape[0]
     rs = np.random.RandomState(1)
@@ -67,7 +69,7 @@ def test_threefry_kernel_matches_rng_protocol():
 
 
 def test_rollout_matches_fast_local(world):
-    """rollout (whole solve in one Pallas kernel) == fast_local (XLA loop,
+    """rollout (whole solve in one kernel program) == fast_local (XLA loop,
     same stencil semantics, same Threefry streams) up to reduction order."""
     keys, guesses, devs, snaps, points, valid = _batch(world, b=4)
     cfg = cfgm.PSOConfig(iterations=10, population=128)
@@ -116,10 +118,10 @@ def test_rollout_converges_to_truth(world):
 
 @pytest.mark.parametrize("population", [50, 200])
 def test_rollout_masked_population_matches_fast_local(world, population):
-    """Sub-lane-width (and non-multiple-of-128) populations run as masked
-    padding lanes inside the kernel; the real lanes consume the exact
-    ops/rng.py Threefry counters of a P=population jnp solve, so the result
-    matches fast_local at the same budget.  P=50 is the reference's own
+    """Populations that are no multiple of the particle tile run with a
+    masked tail; the real particles consume the exact ops/rng.py Threefry
+    counters of a P=population jnp solve, so the result matches fast_local
+    at the same budget.  P=50 is the reference's own
     launch budget (`scan.launch:11-13`)."""
     keys, guesses, devs, snaps, points, valid = _batch(world, b=3)
     cfg = cfgm.PSOConfig(iterations=10, population=population)
@@ -137,37 +139,11 @@ def test_rollout_masked_population_matches_fast_local(world, population):
     )
 
 
-def test_rollout_grid_block_matches_single_grid(world):
-    """Splitting the B-step grid into sequential blocks (the bf16 big-batch
-    wedge workaround) must return identical per-solve results, including a
-    non-divisible block size (padding path)."""
-    from ndtpso_slam_tpu.models import cost as cost_mod
-    from ndtpso_slam_tpu.ops.pallas_rollout import (
-        pack_rollout_inputs, pso_rollout,
-    )
-
-    keys, guesses, devs, snaps, points, valid = _batch(world, b=5)
-    cfg = cfgm.PSOConfig(iterations=6, population=128)
-    nbrs = jax.vmap(
-        lambda g, s, p, v: cost_mod.bind_neighborhood(
-            g, s, p, v, MAP_CFG, radius=cost_mod.DEFAULT_STENCIL_RADIUS
-        )
-    )(jnp.asarray(guesses), snaps, jnp.asarray(points), jnp.asarray(valid))
-    sten, pts = jax.vmap(pack_rollout_inputs)(nbrs, jnp.asarray(points))
-    kw = dict(cfg=cfg, map_cfg=MAP_CFG,
-              radius=cost_mod.DEFAULT_STENCIL_RADIUS, interpret=True)
-    p1, c1 = pso_rollout(keys, guesses, devs, sten, pts, **kw)
-    p2, c2 = pso_rollout(keys, guesses, devs, sten, pts, grid_block=2, **kw)
-    np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
-    np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
-
-
 def test_slam_rollout_runs_reference_budget(world):
     """The node's default 50-particle budget goes through the rollout cost
-    mode end-to-end (models/slam.py:_align_rollout) — the restriction that
-    forced fall-back to fast_local is gone."""
-    from ndtpso_slam_tpu.models import slam as slam_mod
-    from ndtpso_slam_tpu.models.scan import Scan
+    mode end-to-end (models/slam.py:_align_rollout)."""
+    from ndtpso_slam.models import slam as slam_mod
+    from ndtpso_slam.models.scan import Scan
 
     snap, pts = world
     cfg = cfgm.SlamConfig(
@@ -196,30 +172,11 @@ def test_slam_rollout_runs_reference_budget(world):
     assert np.isfinite(float(res.cost))
 
 
-def test_rollout_bf16_close_to_f32(world):
-    """bf16 scoring operands perturb the cost O(0.4%) but the solve must land
-    on the same pose basin (identical Threefry streams as f32)."""
-    keys, guesses, devs, snaps, points, valid = _batch(world, b=2)
-    cfg = cfgm.PSOConfig(iterations=10, population=128)
-    r_f32 = mesh_mod.solve_batch(
-        keys, guesses, devs, snaps, points, valid, MAP_CFG, cfg, "rollout"
-    )
-    r_bf16 = mesh_mod.solve_batch(
-        keys, guesses, devs, snaps, points, valid, MAP_CFG, cfg, "rollout_bf16"
-    )
-    np.testing.assert_allclose(
-        np.asarray(r_f32.cost), np.asarray(r_bf16.cost), rtol=2e-2
-    )
-    np.testing.assert_allclose(
-        np.asarray(r_f32.pose), np.asarray(r_bf16.pose), atol=5e-2
-    )
-
-
 def test_multi_swarm_rollout_relocalizes(world):
     """Island-model multiswarm through the rollout kernel: spread hypotheses
     against one shared map, exact-cost final merge picks the true basin
     (parallel/multi_swarm.py:multi_swarm_rollout)."""
-    from ndtpso_slam_tpu.parallel.multi_swarm import multi_swarm_rollout
+    from ndtpso_slam.parallel.multi_swarm import multi_swarm_rollout
 
     snap, pts = world
     true = np.float32([0.3, -0.2, 0.05])
@@ -248,13 +205,12 @@ def test_multi_swarm_rollout_relocalizes(world):
     res = multi_swarm_rollout(
         jnp.asarray(keys), jnp.asarray(hypo), np.float32([0.4, 0.4, 0.08]),
         snap, jnp.asarray(points), jnp.asarray(valid), cfg, MAP_CFG,
-        interpret=jax.default_backend() != "tpu",
     )
     pose = np.asarray(res.pose)
     assert np.abs(pose[:2] - inv[:2]).max() < 0.07
     assert abs(pose[2] - inv[2]) < 0.03
     # The merged cost is the exact NDT objective of the returned pose.
-    from ndtpso_slam_tpu.models import cost as cost_mod
+    from ndtpso_slam.models import cost as cost_mod
 
     expected = cost_mod.ndt_cost(
         pose[None].astype(np.float32), snap, jnp.asarray(points),
@@ -263,147 +219,12 @@ def test_multi_swarm_rollout_relocalizes(world):
     np.testing.assert_allclose(float(res.cost), float(expected), rtol=1e-5)
 
 
-def test_rollout_turbo_converges_to_truth(world):
-    """Turbo mode (hardware PRNG, not the parity Threefry stream) still
-    recovers a known SE(2) offset — distribution-level equivalence."""
-    import jax
-
-    if jax.default_backend() != "tpu":
-        # The hardware PRNG has no interpret-mode implementation; skip
-        # up-front rather than string-matching the raised exception (which
-        # would break on reworded errors in future JAX versions).  The turbo
-        # path IS exercised on real TPUs by bench.py (default mode).
-        pytest.skip("rollout_turbo needs the TPU hardware PRNG")
-    snap, pts = world
-    true = np.float32([0.15, -0.1, 0.04])
-    c, s = np.cos(true[2]), np.sin(true[2])
-    moved = np.stack(
-        [pts[:, 0] * c - pts[:, 1] * s + true[0],
-         pts[:, 0] * s + pts[:, 1] * c + true[1]], -1
-    ).astype(np.float32)
-    inv = np.float32([-(true[0] * c + true[1] * s),
-                      true[0] * s - true[1] * c, -true[2]])
-    keys, guesses, devs, snaps, points, valid = _batch(world, b=2)
-    points[:, :200] = moved[None]
-    cfg = cfgm.PSOConfig(iterations=20, population=256)
-    res = mesh_mod.solve_batch(
-        keys, guesses, devs, snaps, points, valid, MAP_CFG, cfg,
-        "rollout_turbo",
-    )
-    pose = np.asarray(res.pose)
-    assert np.abs(pose[:, :2] - inv[None, :2]).max() < 0.05
-    assert np.abs(pose[:, 2] - inv[2]).max() < 0.02
-
-
-@pytest.mark.parametrize("population", [50, 200])
-def test_rollout_local_matches_local_exact(world, population):
-    """The per-particle exact-rebind kernel == the XLA `local_exact` solve
-    (models/cost.py:stencil_exact_cost) at the same Threefry budget — the
-    parity that the frozen-binding rollout kernel can NOT satisfy at small
-    cells (VERDICT r3 weak #1).  Tolerance is float-associativity only."""
-    keys, guesses, devs, snaps, points, valid = _batch(world, b=3)
-    cfg = cfgm.PSOConfig(iterations=10, population=population)
-    r_ref = mesh_mod.solve_batch(
-        keys, guesses, devs, snaps, points, valid, MAP_CFG, cfg, "local_exact"
-    )
-    r_roll = mesh_mod.solve_batch(
-        keys, guesses, devs, snaps, points, valid, MAP_CFG, cfg, "rollout_local"
-    )
-    np.testing.assert_allclose(
-        np.asarray(r_ref.cost), np.asarray(r_roll.cost), rtol=1e-5, atol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(r_ref.pose), np.asarray(r_roll.pose), atol=1e-5
-    )
-
-
-def test_rollout_local_grid_block_matches_single_grid(world):
-    from ndtpso_slam_tpu.models import cost as cost_mod
-    from ndtpso_slam_tpu.ops.pallas_rollout import (
-        pack_rollout_local_inputs, pso_rollout_local,
-    )
-
-    keys, guesses, devs, snaps, points, valid = _batch(world, b=5)
-    cfg = cfgm.PSOConfig(iterations=6, population=128)
-    nbrs = jax.vmap(
-        lambda g, s, p, v: cost_mod.bind_neighborhood(
-            g, s, p, v, MAP_CFG, radius=cost_mod.DEFAULT_STENCIL_RADIUS
-        )
-    )(jnp.asarray(guesses), snaps, jnp.asarray(points), jnp.asarray(valid))
-    sten, pts = jax.vmap(pack_rollout_local_inputs)(nbrs, jnp.asarray(points))
-    kw = dict(cfg=cfg, map_cfg=MAP_CFG,
-              radius=cost_mod.DEFAULT_STENCIL_RADIUS, interpret=True)
-    p1, c1 = pso_rollout_local(keys, guesses, devs, sten, pts, **kw)
-    p2, c2 = pso_rollout_local(keys, guesses, devs, sten, pts, grid_block=2, **kw)
-    np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
-    np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
-
-
-def test_slam_rollout_local_tracks_like_local_exact(world):
-    """Sequential SLAM with cost_mode='rollout_local' reproduces the shipped
-    `local_exact` trajectory (same Threefry streams, same exact-rebind cost)
-    — the flagship kernel running the flagship workload."""
-    import dataclasses
-
-    from ndtpso_slam_tpu.io import synthetic
-    from ndtpso_slam_tpu.models import scan as scan_mod, slam
-    from ndtpso_slam_tpu.ops import rng as rng_mod
-
-    lg = synthetic.make_log(seed=3, n_scans=8, n_beams=256, world_size=30.0,
-                            odom_noise=0.02)
-    base = cfgm.SlamConfig(
-        pso=cfgm.PSOConfig(iterations=25, population=50),
-        map=cfgm.MapConfig(size_m=36.0, cell_side_m=0.5, window_slots=4),
-        scan=cfgm.ScanConfig(max_beams=256),
-        og=cfgm.OccupancyGridConfig(enabled=False),
-        cost_mode="local_exact",
-    )
-    scans = [
-        scan_mod.load_laser(r, lg.angle_min, lg.angle_increment, lg.range_max,
-                            base.scan, base.map)
-        for r in lg.ranges
-    ]
-
-    def run(cfg):
-        state = slam.init_slam(cfg, initial_pose=tuple(lg.poses[0]))
-        out = []
-        for i, sc in enumerate(scans):
-            key = rng_mod.threefry2x32(
-                (np.uint32(3), np.uint32(9)), np.uint32(i), np.uint32(0)
-            )
-            state, pose, _ = slam.slam_step(state, sc, key, cfg)
-            out.append(np.asarray(pose, np.float64))
-        return np.stack(out)
-
-    ref = run(base)
-    got = run(dataclasses.replace(base, cost_mode="rollout_local"))
-    np.testing.assert_allclose(got, ref, atol=5e-4)
-    err = np.hypot(*(got[:, :2] - lg.poses[:, :2]).T)
-    assert err.max() < 0.25, f"rollout_local tracking error {err.max():.3f}"
-
-
-def test_rollout_local_turbo_converges_to_truth(world):
-    """Turbo (hardware-PRNG) local kernel still recovers a known offset.
-    In interpret mode pltpu.prng_* is unavailable -> skipped on CPU; the
-    TPU bench exercises it (bench.py --config slam --mode rollout_local_turbo)."""
-    if jax.default_backend() != "tpu":
-        pytest.skip("hardware PRNG needs a real TPU (interpret mode lacks it)")
-    snap, pts = world
-    keys, guesses, devs, snaps, points, valid = _batch(world, b=2)
-    cfg = cfgm.PSOConfig(iterations=20, population=128)
-    res = mesh_mod.solve_batch(
-        keys, guesses, devs, snaps, points, valid, MAP_CFG, cfg,
-        "rollout_local_turbo",
-    )
-    assert np.abs(np.asarray(res.pose)[:, :2]).max() < 0.05
-
-
 def test_rollout_early_exit_semantics(world):
     """early_exit=K makes iterations a CAP: with K >= iterations the loop
     can never trip before the budget, so results are bitwise the fixed-
     budget kernel's; small K still returns finite, accurate solves."""
-    from ndtpso_slam_tpu.models import cost as cost_mod
-    from ndtpso_slam_tpu.ops.pallas_rollout import (
+    from ndtpso_slam.models import cost as cost_mod
+    from ndtpso_slam.ops.pallas_rollout import (
         pack_rollout_inputs, pso_rollout,
     )
 
@@ -415,8 +236,7 @@ def test_rollout_early_exit_semantics(world):
         )
     )(jnp.asarray(guesses), snaps, jnp.asarray(points), jnp.asarray(valid))
     sten, pts = jax.vmap(pack_rollout_inputs)(nbrs, jnp.asarray(points))
-    kw = dict(cfg=cfg, map_cfg=MAP_CFG,
-              radius=cost_mod.DEFAULT_STENCIL_RADIUS, interpret=True)
+    kw = dict(cfg=cfg, map_cfg=MAP_CFG, radius=cost_mod.DEFAULT_STENCIL_RADIUS)
     p0, c0 = pso_rollout(keys, guesses, devs, sten, pts, **kw)
     p1, c1 = pso_rollout(keys, guesses, devs, sten, pts, early_exit=10, **kw)
     np.testing.assert_array_equal(np.asarray(p0), np.asarray(p1))
@@ -428,58 +248,35 @@ def test_rollout_early_exit_semantics(world):
     assert (np.asarray(c2) >= np.asarray(c0) - 1e-6).all()
 
 
-def test_rollout_local_early_exit_cap_is_bitwise(world):
-    """early_exit >= iterations can never trip before the budget on the
-    LOCAL kernel either — bitwise the fixed-budget solve."""
-    from ndtpso_slam_tpu.models import cost as cost_mod
-    from ndtpso_slam_tpu.ops.pallas_rollout import (
-        pack_rollout_local_inputs, pso_rollout_local,
-    )
 
-    keys, guesses, devs, snaps, points, valid = _batch(world, b=2)
-    cfg = cfgm.PSOConfig(iterations=8, population=64)
+
+def _packed(world, b, n_pad, population=128):
+    """A batch plus its packed kernel inputs (stencil bound at the guess)."""
+    from ndtpso_slam.models import cost as cost_mod
+
+    keys, guesses, devs, snaps, points, valid = _batch(world, b, n_pad)
     nbrs = jax.vmap(
         lambda g, s, p, v: cost_mod.bind_neighborhood(
             g, s, p, v, MAP_CFG, radius=cost_mod.DEFAULT_STENCIL_RADIUS
         )
     )(jnp.asarray(guesses), snaps, jnp.asarray(points), jnp.asarray(valid))
-    sten, pts = jax.vmap(pack_rollout_local_inputs)(nbrs, jnp.asarray(points))
-    kw = dict(cfg=cfg, map_cfg=MAP_CFG,
-              radius=cost_mod.DEFAULT_STENCIL_RADIUS, interpret=True)
-    p0, c0 = pso_rollout_local(keys, guesses, devs, sten, pts, **kw)
-    p1, c1 = pso_rollout_local(keys, guesses, devs, sten, pts, early_exit=8, **kw)
-    np.testing.assert_array_equal(np.asarray(p0), np.asarray(p1))
-    np.testing.assert_array_equal(np.asarray(c0), np.asarray(c1))
+    sten, pts = jax.vmap(pr.pack_rollout_inputs)(nbrs, jnp.asarray(points))
+    return keys, guesses, devs, snaps, points, valid, nbrs, sten, pts
 
 
-def test_solve_batch_forwards_early_exit_to_rollout_local(world):
-    """solve_batch(cost_mode='rollout_local', early_exit=K) must actually
-    forward K to the local kernel (it used to silently run the fixed
-    budget): the batch result equals a direct pso_rollout_local call with
-    the same K, and a tight K differs from the K=0 fixed-budget run."""
-    from ndtpso_slam_tpu.models import cost as cost_mod
-    from ndtpso_slam_tpu.ops.pallas_rollout import (
-        pack_rollout_local_inputs, pso_rollout_local,
-    )
-
-    keys, guesses, devs, snaps, points, valid = _batch(world, b=3)
+def test_solve_batch_forwards_early_exit_to_rollout(world):
+    """solve_batch(cost_mode='rollout', early_exit=K) forwards K to the
+    kernel: the batch result equals a direct pso_rollout call with the same
+    K, and a tight K differs from the K=0 fixed-budget run."""
+    keys, guesses, devs, snaps, points, valid, _, sten, pts = _packed(world, 3, 256)
     cfg = cfgm.PSOConfig(iterations=12, population=64)
-    nbrs = jax.vmap(
-        lambda g, s, p, v: cost_mod.bind_neighborhood(
-            g, s, p, v, MAP_CFG, radius=cost_mod.DEFAULT_STENCIL_RADIUS
-        )
-    )(jnp.asarray(guesses), snaps, jnp.asarray(points), jnp.asarray(valid))
-    sten, pts = jax.vmap(pack_rollout_local_inputs)(nbrs, jnp.asarray(points))
-    direct = lambda k: pso_rollout_local(
-        keys, guesses, devs, sten, pts, cfg, MAP_CFG,
-        radius=cost_mod.DEFAULT_STENCIL_RADIUS, interpret=True, early_exit=k,
-    )
     batch = lambda k: mesh_mod.solve_batch(
         keys, guesses, devs, snaps, points, valid, MAP_CFG, cfg,
-        cost_mode="rollout_local", early_exit=k,
+        cost_mode="rollout", early_exit=k,
     )
     r1 = batch(1)
-    pd, cd = direct(1)
+    pd, cd = pr.pso_rollout(keys, guesses, devs, sten, pts, cfg, MAP_CFG,
+                            early_exit=1)
     np.testing.assert_array_equal(np.asarray(r1.pose), np.asarray(pd))
     np.testing.assert_array_equal(np.asarray(r1.cost), np.asarray(cd))
     r0 = batch(0)
@@ -487,3 +284,126 @@ def test_solve_batch_forwards_early_exit_to_rollout_local(world):
         "early_exit=1 produced the fixed-budget result on every solve — "
         "the flag is not reaching the kernel"
     )
+
+
+@pytest.mark.parametrize("n_points, population", [(256, 128), (200, 70)])
+def test_rollout_scores_match_bound_cost(world, n_points, population):
+    """The kernel's coefficient build + tile score == bound_cost of
+    bind_points_local at the same binding, float32 throughout (the order of
+    the sums differs, so to rounding).  200 points / 70 poses leave ragged
+    tails on both tiled axes."""
+    from ndtpso_slam.models import cost as cost_mod
+
+    _, guesses, _, _, points, _, nbrs, sten, pts = _packed(world, 2, n_points)
+    rs = np.random.RandomState(3)
+    poses = jnp.asarray(
+        guesses[:, None, :]
+        + rs.uniform(-0.3, 0.3, (2, population, 3)).astype(np.float32)
+        * np.float32([1, 1, 0.1])
+    )
+    binds = jnp.asarray(guesses) + jnp.float32([0.05, -0.04, 0.01])
+    got = pr.rollout_scores(poses, binds, sten, pts, MAP_CFG)
+    want = jax.vmap(
+        lambda p, g, nb, q: cost_mod.bound_cost(
+            p, cost_mod.bind_points_local(g, nb, q, MAP_CFG)
+        )
+    )(poses, binds, nbrs, jnp.asarray(points))
+    assert got.shape == (2, population)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-5, atol=1e-3)
+
+
+def test_rollout_unpadded_360_beams_matches_fast_local(world):
+    """A 360-beam buffer (no multiple of any tile) runs through the kernel
+    and matches the XLA loop on the same Threefry streams."""
+    keys, guesses, devs, snaps, points, valid = _batch(world, b=2, n_pad=360)
+    cfg = cfgm.PSOConfig(iterations=8, population=96)
+    r_ref = mesh_mod.solve_batch(
+        keys, guesses, devs, snaps, points, valid, MAP_CFG, cfg, "fast_local"
+    )
+    r_roll = mesh_mod.solve_batch(
+        keys, guesses, devs, snaps, points, valid, MAP_CFG, cfg, "rollout"
+    )
+    np.testing.assert_allclose(
+        np.asarray(r_ref.cost), np.asarray(r_roll.cost), rtol=1e-4, atol=1e-3
+    )
+    np.testing.assert_allclose(
+        np.asarray(r_ref.pose), np.asarray(r_roll.pose), atol=5e-3
+    )
+
+
+def test_rollout_small_tiles_match_default_tiles(world, monkeypatch):
+    """Tile sizes change only how the work is cut: many small tiles with
+    ragged tails give the default tiling's solves to rounding."""
+    keys, guesses, devs, _, _, _, _, sten, pts = _packed(world, 2, 200)
+    cfg = cfgm.PSOConfig(iterations=5, population=50)
+    run = lambda: jax.jit(
+        lambda *a: pr._rollout_call(*a, cfg, MAP_CFG, 2, 0, True)
+    )(keys, guesses, devs, sten, pts)
+    p_ref, c_ref = run()
+    monkeypatch.setattr(pr, "TILE_P", 16)
+    monkeypatch.setattr(pr, "TILE_N", 8)
+    p_small, c_small = run()
+    np.testing.assert_allclose(np.asarray(c_small), np.asarray(c_ref),
+                               rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(p_small), np.asarray(p_ref),
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "backend, interpret", [("cpu", True), ("gpu", False), ("rocm", None)]
+)
+def test_interpret_mode_picks_the_kernel_route(monkeypatch, backend, interpret):
+    """Compiled Triton on a GPU, the interpreter on the CPU, and no route
+    (an error, never a silent interpreter) anywhere else."""
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    if interpret is None:
+        with pytest.raises(NotImplementedError, match="no Pallas kernel route"):
+            pr.interpret_mode()
+    else:
+        assert pr.interpret_mode() is interpret
+
+
+@pytest.mark.parametrize("kernel", ["pso_rollout", "rollout_scores"])
+def test_rollout_kernels_lower_for_triton(kernel):
+    """Both kernels lower to Triton IR for CUDA at the batch operating
+    point's widths (N=384 beams, P=4096 particles).  This runs the Pallas
+    Triton lowering on the CPU; compiling that IR for the card happens only
+    on a GPU."""
+    S = jax.ShapeDtypeStruct
+    map_cfg = cfgm.MapConfig(size_m=64.0, cell_side_m=1.0, window_slots=4)
+    b, n, p = 2, 384, 4096
+    if kernel == "pso_rollout":
+        cfg = cfgm.PSOConfig(iterations=50, population=p)
+        fn = lambda k, g, d, s, q: pr._rollout_call(
+            k, g, d, s, q, cfg, map_cfg, 2, 2, False
+        )
+        args = (S((b, 2), jnp.uint32), S((b, 3), jnp.float32),
+                S((b, 3), jnp.float32), S((b, 25, 8, n), jnp.float32),
+                S((b, 8, n), jnp.float32))
+    else:
+        fn = lambda x, g, s, q: pr._scores_call(x, g, s, q, map_cfg, 2, False)
+        args = (S((b, p, 3), jnp.float32), S((b, 3), jnp.float32),
+                S((b, 25, 8, n), jnp.float32), S((b, 8, n), jnp.float32))
+    exported = jax.export.export(
+        jax.jit(fn), platforms=["cuda"],
+        disabled_checks=[
+            jax.export.DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")
+        ],
+    )(*args)
+    text = exported.mlir_module()
+    assert "__gpu$xla.gpu.triton" in text
+    assert f'name = "{kernel}"' in text
+
+
+@pytest.mark.parametrize("population", [1, 50, 200, 1000, 4096, 5000])
+def test_rollout_tiling_adapts_to_population(population):
+    """The particle tile is a power of two no larger than the full-size
+    tile and no larger than the swarm needs; the tiles cover the swarm and
+    the point tiles cover the 384-beam buffer."""
+    tile_p, p_tiles, tile_n, n_tiles, num_warps = pr._tiling(population, 384)
+    assert tile_p & (tile_p - 1) == 0 and tile_n & (tile_n - 1) == 0
+    assert tile_p <= pr.TILE_P and tile_p < 2 * max(population, 1)
+    assert (p_tiles - 1) * tile_p < population <= p_tiles * tile_p
+    assert (n_tiles - 1) * tile_n < 384 <= n_tiles * tile_n
+    assert 4 <= num_warps <= pr.NUM_WARPS

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ndtpso_slam_tpu.config import MapConfig, ScanConfig
-from ndtpso_slam_tpu.models.scan import load_laser
+from ndtpso_slam.config import MapConfig, ScanConfig
+from ndtpso_slam.models.scan import load_laser
 
 CFG = ScanConfig(max_beams=16, ignore_epsilon=0.1)
 

@@ -11,10 +11,10 @@ base key), and idle polls must not perturb state.
 import numpy as np
 import jax.numpy as jnp
 
-from ndtpso_slam_tpu import config as cfgm
-from ndtpso_slam_tpu.io import synthetic
-from ndtpso_slam_tpu.models import scan as scan_mod, slam
-from ndtpso_slam_tpu.parallel.sessions import SlamSessionPool
+from ndtpso_slam import config as cfgm
+from ndtpso_slam.io import synthetic
+from ndtpso_slam.models import scan as scan_mod, slam
+from ndtpso_slam.parallel.sessions import SlamSessionPool
 
 CFG = cfgm.SlamConfig(
     pso=cfgm.PSOConfig(iterations=8, population=40),
@@ -81,7 +81,7 @@ def test_multi_session_node_matches_solo_nodes(tmp_path):
     the same logs, and per-session export bundles are written."""
     import dataclasses
 
-    from ndtpso_slam_tpu.node import MultiSessionNode, NodeConfig, SlamNode
+    from ndtpso_slam.node import MultiSessionNode, NodeConfig, SlamNode
 
     base = NodeConfig(
         frame_size_m=48.0, cell_side_m=1.0, window_slots=4, max_beams=128,
@@ -118,7 +118,7 @@ def test_multi_session_rejects_mismatched_shapes():
 
     import pytest
 
-    from ndtpso_slam_tpu.node import MultiSessionNode, NodeConfig
+    from ndtpso_slam.node import MultiSessionNode, NodeConfig
 
     a = NodeConfig(frame_size_m=48.0, cell_side_m=1.0, max_beams=128,
                    window_slots=4)

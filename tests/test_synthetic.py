@@ -3,7 +3,7 @@ raycaster and the soak world/log used by `bench.py --soak`."""
 
 import numpy as np
 
-from ndtpso_slam_tpu.io import synthetic
+from ndtpso_slam.io import synthetic
 
 
 def test_raycast_swept_degenerates_to_rigid():

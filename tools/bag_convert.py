@@ -30,12 +30,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.src.endswith(".bag"):
-        from ndtpso_slam_tpu.io.rosbag import read_bag
+        from ndtpso_slam.io.rosbag import read_bag
 
         log = read_bag(args.src, scan_topic=args.scan_topic,
                        odom_topic=args.odom_topic)
     else:
-        from ndtpso_slam_tpu.io.importers import load_log
+        from ndtpso_slam.io.importers import load_log
 
         log = load_log(args.src)
 
@@ -45,7 +45,7 @@ def main(argv=None):
           file=sys.stderr)
 
     if args.dst.endswith(".bag"):
-        from ndtpso_slam_tpu.io.rosbag import write_bag
+        from ndtpso_slam.io.rosbag import write_bag
 
         write_bag(
             args.dst, log.ranges, log.timestamps, log.angle_min,
@@ -53,7 +53,7 @@ def main(argv=None):
             odoms=None if log.odoms is None else np.asarray(log.odoms),
         )
     elif args.dst.endswith(".csv"):
-        from ndtpso_slam_tpu.io.importers import write_scan_csv
+        from ndtpso_slam.io.importers import write_scan_csv
 
         write_scan_csv(
             args.dst, log.ranges, log.timestamps, log.angle_min,
@@ -69,7 +69,7 @@ def main(argv=None):
             **({} if log.odoms is None else {"odoms": log.odoms}),
         )
     else:
-        from ndtpso_slam_tpu.utils import native
+        from ndtpso_slam.utils import native
 
         native.scanlog_write(
             args.dst, log.ranges,

@@ -18,7 +18,7 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="default: <scanlog>.odom.csv")
     args = ap.parse_args(argv)
 
-    from ndtpso_slam_tpu.node import _load_log
+    from ndtpso_slam.node import _load_log
 
     log = _load_log(args.scanlog)
     out = args.out or args.scanlog + ".odom.csv"

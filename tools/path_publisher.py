@@ -36,7 +36,7 @@ def main(argv=None):
     ap.add_argument("--density", type=int, default=20, help="pixels per meter")
     args = ap.parse_args(argv)
 
-    from ndtpso_slam_tpu.utils import native
+    from ndtpso_slam.utils import native
 
     pose_xy = _read_csv(args.pose_csv, [1, 2])
     odom_xy = (
